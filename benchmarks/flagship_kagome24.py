@@ -2,7 +2,7 @@
 
 Spin-1/2 nearest-neighbor Heisenberg model on a 2x4-cell kagome lattice
 (24 sites), Sz = 0 sector (dim C(24,12) = 2,704,156), solved two
-independent ways on the TPU chip:
+independent ways on one device:
 
 1. full sector: mixed-precision Krylov on the full-space engines
    (f32 window contractions -> f64 polish);

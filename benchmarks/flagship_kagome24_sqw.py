@@ -1,23 +1,23 @@
 """Momentum-resolved dynamical structure factor S(q, w) for kagome-24.
 
-The flagship-scale dynamics artifact (VERDICT r04 #6; reference analog:
+The flagship-scale dynamics artifact (reference analog:
 model::measure_repr_dynamic, src/model.cc:1896-1912 — continued fractions
 only, no KPM): on the 24-site kagome Heisenberg antiferromagnet,
 
-1. solve the ground state in its momentum sector k0 (the flagship
-   established GS momentum (0,2); FLAGSHIP_kagome24.json),
+1. solve the ground state in its momentum sector k0 (GS momentum (0,2),
+   BASELINE.md),
 2. for every q on the 2x4 Brillouin-zone grid, build
    Sz(q) = (1/sqrt(N)) sum_r e^{-i q.r} Sz_r (cell-coordinate phases,
    sublattice-summed), land A_q|gs> in sector k0 - q, and record
    operator-resolved Chebyshev moments via measure_repr_dynamic_kpm —
    running on the PROJECTED FULL-SPACE engine (the fast momentum
-   machinery of the flagship; dual-path-tested against the per-row repr
-   kernel in tests/test_kpm.py),
+   machinery of the flagship; dual-path-tested against the sector ELL in
+   tests/test_kpm.py),
 3. reconstruct S(q, w) with the Jackson kernel and write
    SQW_kagome24.json + a heatmap PNG.
 
 Checkpointed and resumable (per-sector stage records + per-q moment
-records in out_Qckpt/). Run (real chip):
+records in out_Qckpt/). Run (GPU):
     python benchmarks/flagship_kagome24_sqw.py [--n-moments 192]
 """
 
@@ -57,20 +57,15 @@ def main():
     ap.add_argument("--lx", type=int, default=2)
     ap.add_argument("--ly", type=int, default=4)
     ap.add_argument("--n-moments", type=int, default=192)
-    ap.add_argument("--k0", type=int, nargs=2, default=None,
-                    help="GS momentum; default from FLAGSHIP_kagome24.json")
+    ap.add_argument("--k0", type=int, nargs=2, default=[0, 2],
+                    help="GS momentum sector (BASELINE.md: (0,2) for 2x4)")
     ap.add_argument("--maxit", type=int, default=4000)
     ap.add_argument("--out", default="SQW_kagome24")
     ap.add_argument("--kpm-fs-max", type=int, default=1 << 24,
                     help="run the Chebyshev recurrence on the projected "
-                         "full-space engine up to this label-space size "
-                         "(the f32 fused scan is chip-proven at 2^24 by "
-                         "this run's own GS solves; the per-row repr "
-                         "kernel crashed the worker at kagome-24 scale)")
+                         "full-space engine up to this label-space size")
     args = ap.parse_args()
 
-    os.environ.setdefault("QBX_COMPILE_CACHE",
-                          os.path.join(_ROOT, ".xla_cache"))
     import jax
 
     initialize(quiet=True, mixed_precision=True, enable_checkpoint=True)
@@ -80,18 +75,7 @@ def main():
     t_all = time.time()
     Lx, Ly = args.lx, args.ly
 
-    k0 = args.k0
-    E0_ref = None
-    if k0 is None:
-        try:
-            with open(os.path.join(_ROOT, "FLAGSHIP_kagome24.json")) as f:
-                flag = json.load(f)
-            k0 = flag.get("gs_momentum") or min(
-                flag["sectors"], key=lambda s: s["E0"])["k"]
-            E0_ref = min(s["E0"] for s in flag["sectors"])
-        except Exception:
-            k0 = [0, 2]
-    k0 = [int(k0[0]), int(k0[1])]
+    k0 = [int(args.k0[0]), int(args.k0[1])]
     print(f"GS momentum sector k0 = {k0}", flush=True)
 
     m, Sz_tot = build(Lx, Ly)
@@ -102,17 +86,12 @@ def main():
     E0 = float(m.eigenvals_repr[0])
     t_gs = time.time() - t0
     print(f"E0(k0) = {E0:.12f}  dim {dim0}  [{t_gs:.1f}s]", flush=True)
-    if E0_ref is not None:
-        assert abs(E0 - E0_ref) < 1e-8, (E0, E0_ref)
 
     from quantum_basis_tpu.utils.ckpt import active_store
 
-    # Release the GS-phase f64 HBM before the q loop (observed: attempts
-    # died RESOURCE_EXHAUSTED / crashed the worker at the first q-sector's
-    # moments): the f64 projected-engine template (full-space 2^24 params)
-    # and the solver program caches pin several GB the f32 moment
-    # recurrence never touches. The f32 template is KEPT — it carries the
-    # Chebyshev recurrence for every q.
+    # Release the GS-phase f64 device memory before the q loop: the f64
+    # projected-engine template (full-space 2^24 params) and the solver
+    # program caches pin several GB the moment recurrence never touches.
     import gc
 
     import jax.numpy as jnp
@@ -120,23 +99,15 @@ def main():
     from quantum_basis_tpu.solvers import restarted as _restarted
     from quantum_basis_tpu.solvers import rqi as _rqi
 
-    m._fsrepr_shared = {k: v for k, v in
-                        getattr(m, "_fsrepr_shared", {}).items()
-                        if k == jnp.dtype(jnp.float32)}
     sec0 = m.sec_repr[0]
-    if getattr(sec0, "_fsrepr_cache", None):
-        sec0._fsrepr_cache = {
-            k: v for k, v in sec0._fsrepr_cache.items()
-            if k == jnp.dtype(jnp.float32)}
     _restarted._DOPS_CACHE.clear()
     _rqi._PROGRAM_CACHE.clear()
     gc.collect()
 
     # Shared spectral bounds, computed ONCE on the full-space f32 engine
     # confined to the Sz=0 subspace (covers every momentum sector, and 0 —
-    # the projector complement's eigenvalue). Replaces the per-q
-    # energy_scale on the per-row repr kernel, the exact crash site of
-    # watchdog attempts 1-6.
+    # the projector complement's eigenvalue), instead of a per-q
+    # energy_scale on each target sector.
     from quantum_basis_tpu.solvers.chebyshev import energy_scale
     from quantum_basis_tpu.utils.rng import vec_randomize
 
@@ -147,10 +118,7 @@ def main():
         bounds = (float(brec["e_min"]), float(brec["e_max"]))
     else:
         t0 = time.time()
-        fs0 = sec0._fsrepr_cache[jnp.dtype(jnp.float32)] \
-            if getattr(sec0, "_fsrepr_cache", None) else None
-        if fs0 is None:
-            fs0 = m._fullspace_repr_op(sec0, dtype=jnp.float32)
+        fs0 = m._fullspace_repr_op(sec0, dtype=jnp.float32)
         re, _ = vec_randomize(fs0.N, seed=7)
         vr = jnp.asarray(re * np.asarray(fs0.mask), jnp.float32)
         # the projected engine is force-complex: the seed needs an

@@ -1,18 +1,18 @@
-"""Fermi-Hubbard 4x4 at half filling — BASELINE config #3, solved on chip.
+"""Fermi-Hubbard 4x4 at half filling — BASELINE config #3, on one device.
 
 U=1.1, N_up = N_dn = 8, sector dim C(16,8)^2 = 165,636,900 — the scale-out
 workload of the framework (the reference's anchor stops at 4x2,
 examples/trans_absent/latt_square/square_Fermi_Hubbard.cc:113).
 
-TPU-first formulation (models/product.py, ops/apply_kron.py): in the
+Factorized formulation (models/product.py, ops/apply_kron.py): in the
 species-major Jordan-Wigner ordering the sector factorizes as
 up (x) down, so the 1.66e8-dim state vector is a (12870, 12870) matrix and
-one H application is two dense 12870^3 MXU matmuls + one elementwise pass
+one H application is two dense 12870^3 matmuls + one elementwise pass
 — no 1.66e8-label enumeration, no Lin table, no residency build. The
 previous row-gather formulation needed 869 s of setup and managed
 0.0121 iter/s on 8 virtual CPU devices; this one runs the full
 mixed-precision pipeline (f32 thick-restart bulk -> f64 RQI polish with
-the hard residual gate) on one chip.
+the hard residual gate) on one device.
 
 Protocol:
 1. 4x2 golden cross-check (E0 = -14.07605866, reference golden) through
@@ -20,7 +20,7 @@ Protocol:
 2. 4x4 solve, checkpointed (out_Qckpt/) and resumable; publishes E0 with
    the exact f64 residual ||Hx - E0 x|| and the gate verdict.
 
-Run (real chip):   python benchmarks/hubbard4x4.py
+Run (GPU):         python benchmarks/hubbard4x4.py
     (CPU check):   python benchmarks/hubbard4x4.py --platform cpu --skip-4x4
 """
 
@@ -36,19 +36,16 @@ import time
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--platform", default=None,
-                    help="force a jax platform (e.g. cpu); default = chip")
+                    help="force a jax platform (e.g. cpu); default = "
+                         "JAX's choice")
     ap.add_argument("--skip-4x4", action="store_true")
     ap.add_argument("--maxit", type=int, default=4000)
     ap.add_argument("--ncv", type=int, default=6,
-                    help="f32 thick-restart basis size (HBM-bound: ncv+1 "
-                         "rows of 662 MB each)")
+                    help="f32 thick-restart basis size (memory-bound: "
+                         "ncv+1 rows of 662 MB each)")
     ap.add_argument("--out", default="HUBBARD4x4.json")
     args = ap.parse_args()
 
-    os.environ.setdefault(
-        "QBX_COMPILE_CACHE",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".xla_cache"))
     import jax
 
     if args.platform:
@@ -62,7 +59,7 @@ def main():
 
     initialize(enable_checkpoint=True, quiet=True)
     config.solver_log_dir = "out_logs"
-    # allow the one-shot f32 stage-result record (662 MB) — worth a ~1 min
+    # allow the one-shot f32 stage-result record (662 MB) — worth the
     # pull for a warm resume of the whole bulk stage; the multi-GB
     # per-outer RQI records stay over the cap and are skipped
     config.ckpt_max_bytes = 2 << 30

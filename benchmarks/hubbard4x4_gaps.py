@@ -37,10 +37,6 @@ def main():
                          "artifact)")
     args = ap.parse_args()
 
-    os.environ.setdefault(
-        "QBX_COMPILE_CACHE",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".xla_cache"))
     import jax
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(

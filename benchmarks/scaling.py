@@ -5,8 +5,8 @@ Measures (JSON lines, one per configuration):
 - lanczos_iters_per_s (full iteration incl. psum reductions);
 - scaling efficiency vs the 1-device run.
 
-On a real multi-chip slice this exercises ICI; on a single-chip or CPU
-environment run with
+On several real devices this exercises their interconnect; on one device
+or a CPU run with
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORMS=cpu python benchmarks/scaling.py [L]
 to validate the sharded program (virtual devices share one socket, so CPU
@@ -25,13 +25,6 @@ if _ROOT not in sys.path:  # __graft_entry__ lives at the repo root
     sys.path.insert(0, _ROOT)
 
 import numpy as np
-
-if os.environ.get("JAX_PLATFORMS"):
-    # a site plugin may pin another platform; config.update wins if applied
-    # before first backend use
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 
 def main(L=20):

@@ -2,7 +2,7 @@
 
 Python driver mirroring the reference example
 examples/trans_symmetric/latt_chain/chain_Heisenberg_spin_half.cc —
-the same physics checks, through the TPU-native API.
+the same physics checks, through the JAX API.
 
 Run:  python examples/chain_heisenberg_spin_half.py [L]
 """

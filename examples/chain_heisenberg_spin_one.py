@@ -4,7 +4,7 @@ Python driver mirroring the reference examples
 examples/trans_absent/latt_chain/chain_Heisenberg_spin_one.cc (full, L=10)
 and examples/trans_symmetric/latt_chain/chain_Heisenberg_spin_one.cc
 (momentum sectors, L=12) — the same physics checks, through the
-TPU-native API.
+JAX API.
 
 Run:  python examples/chain_heisenberg_spin_one.py [L_full] [L_k]
 """

@@ -88,7 +88,7 @@ def build_factorized_sector(Lx, Ly, Nup, Ndn, t=1.0, U=1.1):
 
 
 def build_factorized(Lx, Ly, t=1.0, U=1.1, Nf=None):
-    """Species-factorized Hubbard (the TPU-first formulation).
+    """Species-factorized Hubbard (the dense-matmul formulation).
 
     In the species-major Jordan-Wigner ordering the up and down species
     decouple into two copies of a SPINLESS-fermion hopping factor on the

@@ -2,7 +2,7 @@
 //
 // Native equivalents of the reference's host combinatorics layer
 // (reference wztzjhn/quantum_basis is all C++; these cover the rows the
-// TPU framework keeps on the host):
+// framework keeps on the host):
 //   * compact_rows  — ELL row compaction (sort + duplicate-column merge),
 //                     the host half of the sparse build (cf. lil_mat's
 //                     sorted-insert accumulate, src/sparse.cc:44-111),

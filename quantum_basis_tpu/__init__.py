@@ -1,9 +1,9 @@
-"""quantum_basis_tpu — a TPU-native exact-diagonalization framework.
+"""quantum_basis_tpu — an exact-diagonalization framework on JAX accelerators.
 
-A brand-new JAX/XLA/Pallas framework for quantum lattice many-body problems
+A JAX/XLA framework for quantum lattice many-body problems
 (spins, bosons, fermions, and mixtures), providing the full capability surface
 of the reference C++ library ``wztzjhn/quantum_basis`` (see SURVEY.md), but
-designed TPU-first:
+designed for accelerators:
 
 - many-body product states are fixed-width integer *labels* (mixed-radix codes
   over per-(orbital,site) "slots"), decoded on device with vectorized
@@ -12,10 +12,10 @@ designed TPU-first:
 - the Hamiltonian is compiled from a host-side symbolic operator algebra into
   static *term tables* (joint-column lookup tables + Jordan-Wigner weight
   vectors), so matrix-free application ``y = H @ x`` is pure gathers, small
-  integer matmuls (fermion parity on the MXU), and elementwise math — no
+  integer matmuls (fermion parity), and elementwise math — no
   scatters, no dynamic shapes (reference: src/basis.cc:2585-2840,
   src/model.cc:941-1121);
-- all device numerics are split-complex float64 (TPU has no complex128);
+- all device numerics are split-complex float64 ``(re, im)`` pairs;
 - eigensolvers are a native JAX Krylov suite (Lanczos, CG refinement,
   thick-restart Lanczos, Chebyshev-filtered interior windows, continued
   fractions) — replacing MKL/ARPACK-NG/FEAST (reference: src/lanczos.cc);

@@ -1,6 +1,6 @@
 """Basis index: label -> row position lookup on device.
 
-The TPU analogs of the reference's three lookup strategies
+The device analogs of the reference's three lookup strategies
 (src/basis.cc:1193-1348, src/model.cc:266-270):
 
 - ``direct``: an O(1) dense position table over the whole label space —

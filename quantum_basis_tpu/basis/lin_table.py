@@ -1,6 +1,6 @@
 """Generalized Lin tables: label -> row index via two small gathers.
 
-TPU-first redesign of the reference's Lin-table machinery
+Device-first redesign of the reference's Lin-table machinery
 (``fill_Lin_table`` + ``ALGraph::BSF_set_JaJb``, src/basis.cc:1193-1348,
 src/miscellaneous.cc:640-708): a basis row index is recovered as
 

@@ -1,6 +1,6 @@
 """Local Hilbert-space descriptors ("orbitals").
 
-TPU-native analog of the reference's ``basis_prop`` (reference:
+JAX analog of the reference's ``basis_prop`` (reference:
 src/basis.cc:31-127, src/qbasis.h:295-335). Instead of describing a bit
 layout, a :class:`SiteBasis` describes one orbital's local dimension and
 fermion-count map; the many-body packing into integer labels is done by

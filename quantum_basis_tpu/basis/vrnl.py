@@ -1,6 +1,6 @@
 """Variational ("vrnl") Trugman bases: translate-to-center canonical states.
 
-TPU-native re-design of the reference's variational-basis sector for
+Device-side re-design of the reference's variational-basis sector for
 single-polaron-type excitations (reference: src/model.cc:489-616 build,
 src/model.cc:838-924 matrix, src/model.cc:1915-2143 measurements;
 src/basis.cc:661-704 translate2center_OBC; src/basis.cc:2842-2946 basis
@@ -78,7 +78,7 @@ class CenterTranslator:
             SP[:, g] = sp
             Qs.append(Q)
         self.SP = jnp.asarray(SP.astype(np.float64))  # f64: exact < 2^53;
-        # s64 dot_general is unimplemented in XLA's TPU X64 rewriting
+        # not every XLA backend implements an s64 dot_general
         self.Q = (jnp.asarray(np.stack(Qs).astype(np.float32))
                   if self.fermionic else None)
 

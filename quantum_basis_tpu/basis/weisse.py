@@ -5,7 +5,7 @@ multi-arrays + zipper, src/basis.cc:1475-2202, src/model.cc:274-487) exists
 so the momentum basis can be enumerated from HALF-lattice bases — O(d^{N/2})
 memory — instead of scanning the d^N product space state by state.
 
-This module delivers the same capability in TPU-first form:
+This module delivers the same capability in device-first form:
 
 1. split the label space at a digit boundary SA ~ sqrt(label_space)
    (the same contiguous split as the Lin tables; the ''zipper'' of two

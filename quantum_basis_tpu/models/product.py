@@ -10,7 +10,7 @@ Each factor is an ordinary :class:`~quantum_basis_tpu.models.model.Model`
 with its full sector enumerated; the coupling is a list of pairs of
 diagonal operators. ``locate_E0_lanczos`` then runs the framework's
 standard mixed-precision pipeline — f32 thick-restart bulk on the dense
-MXU engine, f64 Jacobi-Davidson/RQI polish on the exact-f64 ELL engine —
+engine, f64 Jacobi-Davidson/RQI polish on the f64 engine —
 with stage checkpointing and the hard residual gate.
 
 Flagship use: Fermi-Hubbard 4x4 at half filling (species-major JW
@@ -147,7 +147,7 @@ class ProductModel:
         import jax.numpy as jnp
 
         from quantum_basis_tpu import config
-        from quantum_basis_tpu.config import lanczos_precision
+        from quantum_basis_tpu.config import residual_gate
         from quantum_basis_tpu.solvers.restarted import (_solver_log,
                                                          eigs_smallest)
 
@@ -175,7 +175,7 @@ class ProductModel:
             self._publish(key, evals, [self._unpad(fs, v) for v in vecs])
             return self.eigenvals[0]
 
-        # stage 1: f32 bulk on the dense MXU engine
+        # stage 1: f32 bulk on the dense engine
         import time as _time
 
         fs32 = self.op(jnp.float32)
@@ -189,7 +189,7 @@ class ProductModel:
             if "RESOURCE_EXHAUSTED" not in str(e):
                 raise
             # the (ncv+1, N) thick-restart buffer (plus its donation copy)
-            # overflowed the chip; the rolling 2-vector kernel needs ~5
+            # overflowed device memory; the rolling 2-vector kernel needs ~5
             # vectors total. tol=1e-8 makes its residual gate match the
             # thick path's f32 gate (1e3 * tol * |E0|).
             log("f32 thick-restart OOM; falling back to rolling 2-vector "
@@ -233,8 +233,7 @@ class ProductModel:
                           1.0 / float(cx.norm(out["vector"])))
             out = lanczos_ground(fs64, v0, maxit=maxit, inner=60,
                                  ckpt_key=key + "_polish")
-        r_gate = max(1e3 * lanczos_precision * max(abs(out["E0"]), 1.0),
-                     5e-10)
+        r_gate = residual_gate(out["E0"])
         if out["residual"] >= r_gate:
             err = RuntimeError(
                 f"product-sector polish unconverged: E0={out['E0']:.12f}, "

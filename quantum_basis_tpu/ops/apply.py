@@ -1,12 +1,12 @@
 """Matrix-free operator application on device.
 
-The hot path of the framework — the TPU-native equivalent of
+The hot path of the framework — the device equivalent of
 ``model::MultMv2`` (reference: src/model.cc:941-1121). Per row block:
 
 1. decode slot values V and fermion counts F (precomputed, int8);
 2. joint columns c = V[slots] . jstrides  — batched gathers + tiny dot;
 3. Jordan-Wigner parities for ALL terms at once: (F @ W^T) mod 2 — one
-   small f32 matmul on the MXU (replaces per-state fermion scans);
+   small f32 matmul (replaces per-state fermion scans);
 4. table lookups amp/delta, target labels, index lookup (one gather for the
    direct table; log N gathers for binary search);
 5. y[i] = diag[i] x[i] + sum conj(amp) * sign * x[j]  — the Hermitian
@@ -101,11 +101,13 @@ def _group_device(group):
 
 def _block_images(g, labels, V, F):
     """Per block: (sign (B,T), amp tables (B,T,K), target labels (B,T,K))."""
+    import jax
     import jax.numpy as jnp
 
     Vg = V.astype(jnp.int64)[:, g["slots"]]                      # (B, T, k)
     c = jnp.sum(Vg * g["jstrides"][None], axis=-1)               # (B, T)
-    par = jnp.dot(F.astype(jnp.float32), g["Wf"])                # (B, T) counts
+    par = jnp.dot(F.astype(jnp.float32), g["Wf"],               # (B, T) counts
+                  precision=jax.lax.Precision.HIGHEST)
     sign = 1.0 - 2.0 * jnp.mod(par, 2.0)                         # (B, T) f32
     flat = jnp.arange(g["T"], dtype=jnp.int64)[None, :] * g["D"] + c
     amp_re = g["amp_re"][flat]                                   # (B, T, K)

@@ -1,4 +1,4 @@
-"""Full-label-space apply as dense window contractions on the MXU.
+"""Full-label-space apply as dense window contractions (matmuls).
 
 The second-generation full-space engine (successor of the masked-roll engine
 in :mod:`quantum_basis_tpu.ops.apply_fullspace`). The state vector over the
@@ -8,7 +8,7 @@ tensor axes. Instead of one HBM roll pass per image class (the roll engine's
 cost model: ~2 passes per bond), terms are grouped into contiguous slot
 WINDOWS of joint dimension <= ``max_window``; each window's terms sum into
 one dense G (Dw x Dw) matrix and the whole group applies as ONE batched
-matmul on the MXU:
+matmul:
 
     y += einsum('amb,nm->anb', x.reshape(hi, Dw, lo), G)
 
@@ -18,19 +18,17 @@ a second FRAME: the same vector with its slot order rotated by S/2 (one
 Anything still left (rare) falls back to the roll engine's masked-roll pass.
 The diagonal stays one elementwise pass computed from a label iota.
 
-Why this is the right TPU design: the roll engine is HBM-bound at ~2 passes
-per bond (L=24 chain: 49 passes, 55 ms/apply in f64); the window engine
-reads x O(#windows + #frames) times and turns the per-bond work into MXU
-flops — driver-captured bench on the same workload: 6.4-6.6 ms/apply in
-f32, 5.5-5.7e9 sector nnz/s on a v5e chip (BENCH_r02/r04.json), an ~8x
-win over the roll engine. Supports any mixed-radix site dimension (the joint
+Why: the roll engine is bandwidth-bound at ~2 passes per bond (L=24
+chain: 49 passes per apply); the window engine reads x O(#windows +
+#frames) times and turns the per-bond work into matmul flops. Supports any
+mixed-radix site dimension (the joint
 matrices are exact — no popcount constraint for window terms, unlike the
 roll engine) and any dtype (f32 for the mixed-precision Krylov path, f64
-for exact verification on CPU).
+for the exact stage).
 
 Reference parity: replaces model::MultMv2 (src/model.cc:941-1121) for full
 sectors. No analog exists in the reference — this is the quantum-circuit-
-simulator formulation of SpMV, enabled by the MXU.
+simulator formulation of SpMV.
 """
 
 from __future__ import annotations
@@ -139,8 +137,8 @@ class ContractPlan:
         # terms (lattice wrap bonds) become window-assignable. Candidate
         # rotations are scored by how many leftovers they absorb, with a
         # BALANCE tiebreak: the frame transpose is x.reshape(Q, P).T and
-        # degenerate shapes like (2, N/2) run an order of magnitude slower
-        # on TPU than square-ish ones (measured 14.6 ms vs 1.2 ms at 2^24).
+        # degenerate shapes like (2, N/2) can run an order of magnitude
+        # slower than square-ish ones.
         self.rotations.append(0)
         run_frame(0, 0)
         while (len(self.rotations) < max_frames
@@ -296,8 +294,8 @@ class ContractOp:
         self.space = space
         self.compiled = compiled
         self.dtype = jnp.dtype(dtype or jnp.float32)
-        # f32 dots on TPU default to bf16 inputs (rel err ~2.5e-3, measured);
-        # HIGHEST restores true f32 accuracy (~1.7e-7) at ~1.6x matmul cost
+        # f32 dots run at HIGHEST: a reduced-precision default (TF32 on the
+        # GPU, 10-bit mantissa) is far below the f32 stage's 1e-5 target
         self._precision = (jax.lax.Precision.HIGHEST
                            if self.dtype == jnp.dtype(jnp.float32) else None)
         N = int(space.label_space)

@@ -1,8 +1,7 @@
 """Full-label-space matrix-free apply: Hamiltonian terms as masked rolls.
 
-The fastest TPU apply in the framework, born from a measurement: XLA lowers
-arbitrary gathers on TPU to ~1.3e8 elements/s regardless of dtype or index
-locality, while dense elementwise passes run at HBM bandwidth. So instead of
+An apply built from dense elementwise passes only: where arbitrary gathers
+run far below memory bandwidth while dense passes run at it, instead of
 gathering per matrix entry (ELL) or per image (matrix-free row kernel), this
 engine keeps vectors over the ENTIRE mixed-radix label space and expresses
 every off-diagonal image class as
@@ -14,13 +13,13 @@ where ``delta`` is the CONSTANT label displacement of that image class
 per-class stride offset), ``amp`` is a per-joint-column value computed
 elementwise from label digits (no tables, no gathers), and the Jordan-Wigner
 sign is a popcount over a precomputed bitmask. All passes are dense,
-regular, fusable VPU work.
+regular, fusable elementwise work.
 
 Trade-off: vectors are label_space long instead of sector-dim long (e.g.
-6.2x for the L=24 Sz=0 chain), but each element-touch is ~18x cheaper than a
-gather — measured 992 ms (ELL) -> 54.8 ms per f64 apply on the L=24 bench
-chip (BENCH_r01.json). The successor engine in ops/apply_contract.py reduces
-this further by turning bond groups into MXU window contractions. Sector
+6.2x for the L=24 Sz=0 chain), but each element-touch is a dense pass
+instead of a gather. The successor engine in ops/apply_contract.py turns
+bond groups into window contractions (matmuls) and is the default; this
+engine is its f64 fallback. Sector
 states stay exactly in-sector (H conserves the quantum numbers and
 out-of-sector amplitudes start and remain zero); random solver restarts are
 projected by the sector mask.
@@ -32,8 +31,8 @@ count is popcount-compatible mod 2 (spin-1/2, spinless fermion, electron).
 row-gather engines otherwise (e.g. t-J, d=3).
 
 Reference parity: this replaces model::MultMv2 (src/model.cc:941-1121) for
-full sectors; there is no analog in the reference — it is a TPU-specific
-design enabled by cheap dense bandwidth and expensive random access.
+full sectors; there is no analog in the reference — it is a design for
+devices with cheap dense bandwidth and expensive random access.
 """
 
 from __future__ import annotations

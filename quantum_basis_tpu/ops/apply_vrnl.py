@@ -1,6 +1,6 @@
 """Operator application in the variational (vrnl) sector.
 
-TPU-native counterparts of ``model::MultMv`` over the explicit vrnl matrix,
+Device counterparts of ``model::MultMv`` over the explicit vrnl matrix,
 ``moprXgs_vrnl`` (reference: src/model.cc:1915-1984), ``moprXvec_vrnl``
 (src/model.cc:1987-2074), and ``measure_vrnl_static_trans_invariant``
 (src/model.cc:2077-2129). All use the batched canonicalization from

@@ -1,6 +1,6 @@
 """Compile a symbolic Mopr into static device term tables.
 
-This is the TPU-native replacement for the reference's on-the-fly operator
+This is the device-side replacement for the reference's on-the-fly operator
 application ``oprXphi`` (reference: src/basis.cc:2585-2840) and the loops of
 ``model::MultMv2`` (src/model.cc:941-1121). Instead of walking a byte-packed
 state and branching per operator, every Hamiltonian term is compiled ONCE

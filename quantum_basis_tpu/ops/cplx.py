@@ -1,16 +1,14 @@
 """Split-complex vector helpers.
 
-TPU v5e has no complex128; all device numerics carry (re, im) pairs of
-float64 arrays, with ``im=None`` for real sectors (real symmetric H). These
-helpers keep solver code readable. A "cvec" is the tuple (re, im_or_None).
+All device numerics carry (re, im) pairs of float64 arrays, with
+``im=None`` for real sectors (real symmetric H), so real sectors pay no
+complex arithmetic. These helpers keep solver code readable. A "cvec" is
+the tuple (re, im_or_None).
 
-f64 dot products here go through elementwise-multiply + reduce, NOT
-``jnp.vdot``/``dot_general``: on the TPU backend an f64 dot_general lowers
-to an MXU emulation with only ~1e-10 relative accuracy (measured; ~1e-8
-when fused with upstream compute), silently capping every solver's
-achievable residual. The reduce path lowers to exact f64 VPU ops
-(measured ~1e-15 in and out of fusion). f32 vectors keep ``jnp.vdot`` —
-the MXU fast path is the point of the f32 engine.
+f64 dot products use ``jnp.vdot`` (exact on native-f64 backends), or
+elementwise-multiply + reduce when ``config.f64_reduce_dots`` is set (for
+a backend whose f64 dot_general is not exact). f32 dots run at
+Precision.HIGHEST.
 """
 
 from __future__ import annotations
@@ -21,18 +19,17 @@ import jax.numpy as jnp
 def _dot(a, b):
     """Sum(a*b) with precision-safe lowering (see module docstring).
 
-    f32 dots force Precision.HIGHEST: the TPU default demotes dot inputs
-    to bf16 (~4e-3 relative error), which flipped small curvature values
-    (pAp ~ spectral-gap scale) negative inside the RQI inner CG — the
-    solve silently returned a zero correction on chip while CPU runs
-    (where precision flags are no-ops) passed.
+    f32 dots force Precision.HIGHEST: a reduced-precision default (bf16 or
+    TF32 inputs, ~1e-3 relative error) flips small curvature values
+    (pAp ~ spectral-gap scale) negative inside the RQI inner CG, and the
+    solve silently returns a zero correction.
     """
     import jax
 
     if a.dtype == jnp.float64:
-        from quantum_basis_tpu.config import use_f64_reduce_dots
+        from quantum_basis_tpu import config
 
-        if use_f64_reduce_dots():
+        if config.f64_reduce_dots:
             return jnp.sum(a * b)
         return jnp.vdot(a, b)
     return jnp.vdot(a, b, precision=jax.lax.Precision.HIGHEST)

@@ -1,6 +1,6 @@
 """Explicit sparse Hamiltonian: ELL extraction + device SpMV.
 
-TPU-native counterpart of the reference's LIL -> CSR pipeline
+Device counterpart of the reference's LIL -> CSR pipeline
 (``generate_Ham_sparse_full/repr``, src/model.cc:619-836; ``lil_mat``/
 ``csr_mat``, src/sparse.cc). Instead of pointer-chasing CSR, rows are stored
 fixed-width (ELL): ``cols (n, W) int32`` + split-complex ``vals (n, W)`` +
@@ -330,7 +330,7 @@ def hermiticity_probe(matvec_or_ell, n: int, complex_vec: bool,
                       n_probes: int = 3, seed: int = 11, tol: float = 1e-9):
     """Randomized Hermiticity check: <z|Hx> == conj(<x|Hz>).
 
-    The TPU analog of the reference's full-matrix verification
+    The device analog of the reference's full-matrix verification
     (src/sparse.cc:235-256, exit(99) on failure) — O(probes * SpMV) instead
     of O(nnz) host walks; raises AssertionError on failure.
     """

@@ -3,8 +3,8 @@
 The multi-chip replacement for the reference's OpenMP row-parallel
 ``model::MultMv2`` loops (reference: src/model.cc:941-1121, §2.2/§5.8 of
 SURVEY.md). Row blocks are sharded over a 1-D mesh axis; Lanczos vectors are
-sharded over the same axis; each device all-gathers the source vector over
-ICI and computes its own rows with the identical gather kernel as the
+sharded over the same axis; each device all-gathers the source vector and
+computes its own rows with the identical gather kernel as the
 single-chip path (:func:`quantum_basis_tpu.ops.apply.apply_block_rows`) —
 no scatters, no host round-trips. Reductions in the solvers (vdot/norm) are
 ordinary jnp ops over sharded arrays, which XLA lowers to psum collectives.

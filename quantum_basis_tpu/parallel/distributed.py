@@ -1,16 +1,15 @@
 """Multi-host distribution: process-group init + global meshes.
 
 The reference scales across hosts with MPI (SURVEY §2.2 / §5.8: boost::mpi
-broadcast of basis shards, src/model.cc row partitioning). The TPU-native
-equivalent is JAX's multi-controller runtime:
+broadcast of basis shards, src/model.cc row partitioning). The JAX
+equivalent is its multi-controller runtime:
 
 1. every host process calls :func:`init_distributed` once at startup;
 2. meshes are built over ``jax.devices()`` — which after initialization
-   lists ALL devices in the slice/pod, not just the local ones;
+   lists ALL devices of every process, not just the local ones;
 3. arrays are laid out with ``jax.sharding.NamedSharding`` over that global
    mesh, and jit/GSPMD inserts the collectives (psum/all-gather/ppermute)
-   so intra-host traffic rides ICI and cross-host traffic rides DCN — no
-   hand-written sends, no MPI ranks in user code.
+   — no hand-written sends, no MPI ranks in user code.
 
 Both sharded engines are multi-host-clean by construction:
 
@@ -39,9 +38,9 @@ def init_distributed(coordinator_address: str | None = None,
                      local_device_ids=None) -> bool:
     """Initialize the JAX multi-controller runtime (idempotent).
 
-    With no arguments, relies on auto-detection: on Cloud TPU pods and
-    under SLURM/OpenMPI launchers ``jax.distributed.initialize()`` resolves
-    the coordinator and process ids from the environment. Explicit
+    With no arguments, relies on auto-detection: under SLURM/OpenMPI
+    launchers ``jax.distributed.initialize()`` resolves the coordinator and
+    process ids from the environment. Explicit
     arguments override (COORDINATOR host:port, process count, this
     process's id). Returns True when a multi-process group is active,
     False on the single-process fallback.
@@ -55,7 +54,7 @@ def init_distributed(coordinator_address: str | None = None,
     explicit = coordinator_address is not None or num_processes is not None
     env_hint = any(k in os.environ for k in (
         "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-        "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE", "TPU_WORKER_HOSTNAMES"))
+        "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE"))
     if explicit or env_hint:
         try:
             jax.distributed.initialize(
@@ -66,14 +65,12 @@ def init_distributed(coordinator_address: str | None = None,
         except Exception as e:  # pragma: no cover - environment dependent
             if explicit:
                 raise
-            # Strong multi-host markers mean this process is PART of a pod
-            # job: falling back would silently run N independent single-host
-            # computations. Refuse. (Weak hints like SLURM_JOB_ID on a
-            # single-node allocation still fall back with a warning.)
-            workers = [w for w in os.environ.get(
-                "TPU_WORKER_HOSTNAMES", "").split(",") if w.strip()]
+            # Strong multi-host markers mean this process is PART of a
+            # multi-process job: falling back would silently run N
+            # independent single-host computations. Refuse. (Weak hints like
+            # SLURM_JOB_ID on a single-node allocation still fall back with
+            # a warning.)
             strong = ("JAX_COORDINATOR_ADDRESS" in os.environ
-                      or len(workers) > 1
                       or int(os.environ.get("OMPI_COMM_WORLD_SIZE", "1")) > 1)
             if strong:
                 raise RuntimeError(

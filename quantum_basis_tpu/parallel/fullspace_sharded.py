@@ -3,14 +3,14 @@
 The full-space apply (ops/apply_fullspace.py) is built from dense regular
 primitives only — iota, elementwise masks, rolls, adds. Under a 1-D mesh
 sharding of the label axis, GSPMD partitions every one of them natively:
-rolls become local rolls + a boundary collective-permute over ICI, masks
+rolls become local rolls + a boundary collective-permute, masks
 are computed from the sharded iota, and reductions in the enclosing solver
 are psums. No gather/scatter, no halo bookkeeping — the communication per
 apply is one |delta|-sized boundary slab per roll pass, moved over the
 fastest interconnect by the compiler.
 
-This is the scaling path for label spaces beyond one chip's HBM: vectors of
-2^30 f64 = 8.6 GB shard to ~1.1 GB/chip on a v5e-8.
+This is the scaling path for label spaces beyond one device's memory: a
+vector of 2^30 f64 (8.6 GB) shards to 2.1 GB per device over four.
 """
 
 from __future__ import annotations

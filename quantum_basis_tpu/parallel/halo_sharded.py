@@ -6,10 +6,10 @@ all-gather): the sparsity pattern of H is static, so the exact set of
 off-shard source entries each device needs ("the halo") is computed ONCE on
 the host, and every apply exchanges only those entries via one
 ``jax.lax.all_to_all`` over the mesh axis — the ragged all-to-all of
-SURVEY §5.8, padded to the max pair capacity (TPU collectives are
+SURVEY §5.8, padded to the max pair capacity (XLA collectives are
 static-shaped). For local Hamiltonians in index-locality-preserving basis
-orders the halo is a small fraction of the vector, so the exchange rides
-ICI/DCN at a bandwidth cost proportional to the TRUE coupling between
+orders the halo is a small fraction of the vector, so the exchange costs
+bandwidth in proportion to the TRUE coupling between
 shards instead of the full vector size (reference's analog: the OpenMP
 row-parallel loops share one address space and pay nothing,
 src/model.cc:941-1121 — across hosts the halo is the honest replacement).

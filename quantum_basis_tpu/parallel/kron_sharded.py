@@ -1,15 +1,13 @@
-"""Mesh-sharded tensor-factorized engine — the flagship's multi-chip path.
+"""Mesh-sharded tensor-factorized engine — the flagship's multi-device path.
 
 :class:`~quantum_basis_tpu.ops.apply_kron.KronOp` turns a factorizable
-sector apply into two dense MXU matmuls plus an elementwise pass; here the
+sector apply into two dense matmuls plus an elementwise pass; here the
 state matrix ``psi`` (na, nb) is sharded by rows (the up-factor index)
 over a 1-D device mesh and the SAME apply is jitted under GSPMD:
 
 - ``A @ psi``: ``A`` is laid out column-sharded so the contraction runs
   shard-local and XLA reduce-scatters the partial products back to the
-  row-sharded layout (bytes moved per apply: one (na, nb) frame — the
-  ``kron_product`` row of the communication roofline,
-  benchmarks/comm_roofline.py);
+  row-sharded layout (bytes moved per apply: one (na, nb) frame);
 - ``psi @ B^T``: ``B^T`` replicated, fully local;
 - diagonal + coupling: row-sharded elementwise.
 

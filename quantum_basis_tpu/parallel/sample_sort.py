@@ -1,6 +1,6 @@
 """Distributed sample sort over a device mesh.
 
-The TPU-native replacement for the reference's thread-parallel host sort
+The device replacement for the reference's thread-parallel host sort
 (``__gnu_parallel::sort`` under ``use_gnu_parallel_sort``,
 src/basis.cc:8-12,1127-1133) at scales where the label array is sharded
 over devices/hosts and no single host should hold it. Classic sample-sort
@@ -11,7 +11,7 @@ over XLA collectives:
    matrix yields global splitters (all shards compute them identically —
    no designated root);
 3. each element is binned by splitter (``searchsorted``) and exchanged via
-   ``all_to_all`` in fixed-capacity buckets (TPU collectives are
+   ``all_to_all`` in fixed-capacity buckets (XLA collectives are
    static-shaped, so buckets are padded to ``capacity`` and carry a count;
    overflow is reported per shard rather than silently truncated);
 4. each shard sorts its received buckets; the result is globally sorted
@@ -40,8 +40,8 @@ def sample_sort_sharded(x_shards: np.ndarray, mesh, axis: str = "b",
     with 2^62, ``counts[p]`` is the number of valid elements in row p, the
     concatenation of valid prefixes is the globally sorted array, and
     ``overflow`` is True if any bucket exceeded capacity (resort with more
-    slack). Runs under ``shard_map`` — on a real slice the exchange is an
-    ICI ``all_to_all``.
+    slack). Runs under ``shard_map``; the exchange is one
+    ``all_to_all``.
     """
     import jax
     import jax.numpy as jnp

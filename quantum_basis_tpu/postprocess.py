@@ -1,6 +1,6 @@
 """Post-processing: spectral functions and plots.
 
-TPU-framework counterpart of the reference's L10 layer (python/*.py and
+Counterpart of the reference's L10 layer (python/*.py and
 examples/*/plot_*.py): Lanczos/CG convergence plots (python/lanczos_plot.py,
 python/lanczos_plotCG.py), lattice plots (python/lattice_plot.py), and the
 dynamical structure factor S(q, w) reconstructed from continued-fraction

@@ -1,6 +1,6 @@
 """Vectorized mixed-radix codecs.
 
-TPU-native replacement for the reference's per-element ``dynamic_base`` family
+Vectorized replacement for the reference's per-element ``dynamic_base`` family
 (reference: src/miscellaneous.cc:143-258): digit 0 is the least-significant
 digit, identical to the reference's convention. Here encode/decode operate on
 whole arrays at once (numpy on host, jnp on device) instead of one

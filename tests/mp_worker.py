@@ -2,8 +2,8 @@
 
 Launched as one process of an actual ``jax.distributed`` group (gloo
 collectives over localhost TCP — the same multi-controller runtime and
-cross-process collective path a multi-host TPU pod uses over DCN; only the
-transport differs). Each process owns 4 virtual CPU devices; the global
+cross-process collective path a multi-host job uses; only the transport
+differs). Each process owns 4 virtual CPU devices; the global
 mesh spans all processes. The engines under test are the production
 multi-host engines (parallel/fullspace_sharded.py, parallel/halo_sharded.py)
 driven by a plain 2-vector Lanczos whose per-iteration scalars (a, b) are
@@ -80,7 +80,7 @@ def main():
         re = np.zeros(n)
         re[: labels.size] = re0
     elif engine == "kron":
-        # the flagship Hubbard engine (dense MXU matmuls), row-sharded:
+        # the flagship Hubbard engine (dense matmuls), row-sharded:
         # GSPMD partitions the A@psi contraction across the two processes
         sys.path.insert(0, os.path.join(_ROOT, "examples"))
         from square_fermi_hubbard import build_factorized

@@ -172,7 +172,7 @@ def test_lanczos_dynamics_resume(tmp_path, monkeypatch):
 def test_stage_key_carries_ham_fingerprint(tmp_path, monkeypatch):
     """Changing one coupling must invalidate the stage record: model B run
     in a cwd holding model A's out_Qckpt/ (same sector dim) must NOT be
-    handed A's eigenvalues (VERDICT r04 weak #4)."""
+    handed A's eigenvalues."""
     monkeypatch.setattr(config, "enable_ckpt", True)
     monkeypatch.setattr(config, "ckpt_dir", str(tmp_path))
 

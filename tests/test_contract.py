@@ -78,7 +78,8 @@ def test_contract_covers_tj_beyond_roll_engine():
 
 def test_contract_f32_accuracy():
     """HIGHEST-precision f32 contraction tracks f64 to ~1e-6 relative
-    (TPU default bf16 dots would be ~2.5e-3 — the engine must not use them)."""
+    (reduced-precision bf16/TF32 dots would be ~1e-3 — the engine must not
+    use them)."""
     import jax.numpy as jnp
 
     from quantum_basis_tpu.ops.apply_contract import ContractOp

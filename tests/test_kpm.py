@@ -158,7 +158,7 @@ def test_sqw_kpm_sum_rule_and_contfrac_crosscheck():
 def test_repr_kpm_fast_path_matches_repr_kernel(monkeypatch):
     """measure_repr_dynamic_kpm through the projected full-space engine
     (the flagship momentum machinery) must produce the same Chebyshev
-    moments as the per-row repr kernel — the repr basis embeds
+    moments as the sector-dimension fallback — the repr basis embeds
     isometrically in the full space (dual-path discipline, SURVEY §4.3)."""
     import numpy as np
 
@@ -191,37 +191,34 @@ def test_repr_kpm_fast_path_matches_repr_kernel(monkeypatch):
     np.testing.assert_allclose(mu_fast, mu_slow, atol=1e-8)
 
 
-def test_repr_kpm_fallback_routes_bsr32(monkeypatch):
-    """The sector-dim KPM fallback must produce the same moments on the
-    f32 Pallas BSR tier (config.prefer_bsr) as on the f64 gather ELL —
-    f32 recurrence noise sits far below the Jackson resolution."""
+def test_repr_kpm_fallback_runs_on_sector_ell(monkeypatch):
+    """Above config.kpm_fullspace_max_N the moments run on the
+    sector-dimension ELL (the explicit engine the repr solves use) and
+    match the projected full-space moments."""
     import numpy as np
 
     from models_zoo import SP_HALF, heisenberg_chain
     from test_dynamics import _aq
     from quantum_basis_tpu import config
-    from quantum_basis_tpu.models.model import Model
+    from quantum_basis_tpu.ops.sparse import EllMatrix
 
     L, q = 10, 3
     bounds = (-8.0, 8.0)
-    # force the sector-dim fallback (pretend the label space is too large)
-    monkeypatch.setattr(config, "kpm_fullspace_max_N", 1)
 
-    def run(bsr):
-        monkeypatch.setattr(config, "prefer_bsr", bsr)
+    def run(max_n):
+        monkeypatch.setattr(config, "kpm_fullspace_max_N", max_n)
         m, ops = heisenberg_chain(L)
         k_gs = L // 2
         m.enumerate_basis_repr([k_gs], [ops["Sz"]], [0.0], sec=0)
         m.locate_E0_lanczos("repr", nev=1, sec=0)
         m.enumerate_basis_repr([(k_gs - q) % L], [ops["Sz"]], [0.0], sec=1)
-        dst = m.sec_repr[1]
         nrm, mu, e0, e1 = m.measure_repr_dynamic_kpm(
             _aq(L, q, SP_HALF["Sz"]), 0, 1, 24, bounds=bounds)
-        if bsr:  # the route must actually have engaged
-            assert getattr(dst, "_bsr32", None) is not None
-        return nrm, np.asarray(mu)
+        return m.sec_repr[1], nrm, np.asarray(mu)
 
-    nrm_ell, mu_ell = run(False)
-    nrm_bsr, mu_bsr = run(True)
-    assert abs(nrm_ell - nrm_bsr) < 1e-8
-    np.testing.assert_allclose(mu_bsr, mu_ell, atol=5e-5)
+    dst, nrm_ell, mu_ell = run(1)
+    assert isinstance(getattr(dst, "_ell", None), EllMatrix)
+    dst, nrm_fs, mu_fs = run(1 << 23)
+    assert getattr(dst, "_ell", None) is None  # the fast path built no ELL
+    assert abs(nrm_ell - nrm_fs) < 1e-8
+    np.testing.assert_allclose(mu_ell, mu_fs, atol=1e-8)

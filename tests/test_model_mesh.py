@@ -1,4 +1,4 @@
-"""Model-level multi-device orchestration (VERDICT r04 #2).
+"""Model-level multi-device orchestration.
 
 ``Model(..., mesh=...)`` must reproduce golden-zoo E0s through the PUBLIC
 API on the 8-virtual-device mesh — no hand-written driver: residency and

@@ -4,7 +4,7 @@ Everything else in the suite runs a single process over 8 virtual devices;
 SURVEY §5.8's actual claim is about *hosts*. These tests launch a genuine
 2-process ``jax.distributed`` group over localhost (gloo collectives over
 TCP — the same multi-controller runtime and cross-process collective code
-path a TPU pod drives over DCN), 4 virtual CPU devices per process, and run
+path a multi-host job drives), 4 virtual CPU devices per process, and run
 300 Lanczos iterations through each production multi-host engine:
 
 - ``fullspace``: FullSpaceSharded — GSPMD rolls lower to collective-permutes

@@ -205,3 +205,25 @@ def test_measure_repr_cache_not_reused_across_reenumeration():
     m.locate_E0_lanczos(which="repr", sec=0)
     dn = m.measure_repr_static(sz0, 0, 0)
     assert abs(dn.real + 1.0 / L) < 1e-9
+
+
+def test_ell_routed_golden_momentum_sector(monkeypatch):
+    """A golden momentum sector solved end to end on the explicit-ELL route
+    via the public Model API: chain-16 k=0, E0 = -7.142296361 (reference
+    golden, trans_symmetric chain_Heisenberg_spin_half.cc:102). The
+    projected full-space fast path is disabled so the explicit-sparse
+    branch runs — with mixed precision requested, which that route serves
+    in f64."""
+    from quantum_basis_tpu import config
+    from quantum_basis_tpu.models.model import Model
+    from quantum_basis_tpu.ops.sparse import EllMatrix
+    from models_zoo import heisenberg_chain
+
+    monkeypatch.setattr(config, "mixed_precision", True)
+    monkeypatch.setattr(Model, "_fullspace_repr_op",
+                        lambda self, sector, dtype=None: None)
+    m, ops = heisenberg_chain(16)
+    m.enumerate_basis_repr([0], [ops["Sz"]], [0.0])
+    m.locate_E0_lanczos(which="repr")
+    assert abs(m.eigenvals_repr[0] - (-7.142296361)) < 1e-8
+    assert isinstance(m.sec_repr[0]._ell, EllMatrix)
